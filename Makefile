@@ -2,14 +2,19 @@
 
 PY ?= python
 
-.PHONY: test test-tpu bench bench-full build-native clean-native roundtrip graph docs soak ubsan-native asan-native sanitize
+.PHONY: test test-gpu smoke bench bench-full build-native clean-native roundtrip soak ubsan-native asan-native sanitize
 
 test:
 	$(PY) -m pytest tests/ -q
 
-# on-chip Pallas kernel parity (needs real TPU; main suite runs forced-CPU)
-test-tpu:
-	NANORQ_TEST_TPU=1 $(PY) -m pytest tests/test_pallas_tpu.py -q
+# on-card kernel + decode tests (needs an NVIDIA GPU; one process, no xdist:
+# a second JAX process on the card fails for want of memory)
+test-gpu:
+	NANORQ_TEST_GPU=1 $(PY) -m pytest tests/test_gpu_kernels.py -m gpu -q
+
+# main path end to end on one GPU (chip_smoke.py --cards 4 for the mesh path)
+smoke:
+	$(PY) chip_smoke.py
 
 # headline benchmark (one JSON line on stdout; per-K detail on stderr)
 bench:
@@ -50,12 +55,3 @@ roundtrip:
 SOAK_MINUTES ?= 30
 soak:
 	$(PY) -u tools/longfuzz.py $(SOAK_MINUTES)
-
-# regenerate graph.png + doc tables from the latest driver-captured bench JSON
-BENCH_JSON ?= $(lastword $(sort $(wildcard BENCH_r*.json)))
-graph:
-	$(PY) tools/graph.py $(BENCH_JSON) graph.png
-
-docs:
-	$(PY) tools/regen_docs.py $(BENCH_JSON)
-	$(PY) tools/graph.py $(BENCH_JSON) graph.png

@@ -1,4 +1,4 @@
-"""nanorq_tpu: a TPU-native RaptorQ (RFC 6330) fountain-code framework.
+"""nanorq_tpu: a JAX RaptorQ (RFC 6330) fountain-code framework for NVIDIA GPUs.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of the C
 reference implementation sleepybishop/nanorq (see SURVEY.md): systematic

@@ -5,12 +5,9 @@ import os
 import struct
 import sys
 
-# persistent XLA cache: repeat CLI invocations skip device recompiles
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/nanorq_jax_cache")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "2")
-
 from nanorq_tpu.codec.api import SYM_ERR, Decoder
 from nanorq_tpu.io.ioctx import FileIO
+from nanorq_tpu.utils.jax_cache import enable_compile_cache
 
 
 def main(argv=None) -> int:
@@ -35,6 +32,8 @@ def main(argv=None) -> int:
         "SPMD); single-device hosts fall back to 'off'",
     )
     args = ap.parse_args(argv)
+    # persistent XLA cache: repeat CLI invocations skip device recompiles
+    enable_compile_cache()
     mesh = None
     if args.mesh == "auto":
         from nanorq_tpu.parallel.mesh import auto_mesh

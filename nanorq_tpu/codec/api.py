@@ -991,9 +991,9 @@ class Decoder(_CodecBase):
         - "res": the residual arm — no per-pattern system solve (canonical
           w-rows + a tiny native G-inverse + ONE batched device dispatch,
           _repair_residual_batch).  Explicit-only: it ships the received
-          payloads to the device per pattern, which wins exactly when the
-          host<->device link is fast (PCIe-attached TPU hosts), and loses
-          on slow links; the auto policy therefore never picks it.  Falls
+          payloads to the device per pattern, which wins only when the
+          host<->device link is fast; the auto policy never picks it (its
+          routing on the GPU host is not yet measured, ROADMAP S7).  Falls
           back like "host" when the native factorization is unavailable.
         - "device": always build/replay device plans (the streaming shape).
         - "host": always the native CPU arm (falls back to device when the

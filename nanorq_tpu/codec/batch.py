@@ -50,14 +50,13 @@ def generate(batch: ObjectBatch, mesh=None):
 
     ds = _cache.encoder_schedule(batch.enc.P.Kp)
     arr = device_arrays(ds)
-    Dj = jnp.asarray(batch.D)
     if mesh is not None:
         from nanorq_tpu.parallel.mesh import pad_width, replay_sharded, shard_width
 
         Dp = pad_width(batch.D, int(np.prod(mesh.devices.shape)))
         batch.C = replay_sharded(arr, shard_width(Dp, mesh), mesh)
     else:
-        batch.C = replay_device(arr, Dj)
+        batch.C = replay_device(arr, jnp.asarray(batch.D))
     return batch.C
 
 

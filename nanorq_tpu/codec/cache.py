@@ -374,11 +374,10 @@ class WSchedule:
 
 
 # Decode W-path cutover: above these K' the dense matmul's O(K'^2 t) FLOPs
-# lose to the structured replay's O(nnz t).  GF(2) (binary factorization)
-# measured 5.4x faster at K=10000, break-even ~K'=50000 (where host W prep
-# also hits ~140 ms).  GF(256) W pays 64x the bit count but its m is only
-# the (tiny) gap count, so it still wins at small K' — which is exactly
-# where overhead < H forces HDPC pivots.
+# lose to the structured replay's O(nnz t), and host W prep grows with K'.
+# GF(256) W pays 64x the bit count but its m is only the (tiny) gap count,
+# so it still wins at small K' — which is exactly where overhead < H forces
+# HDPC pivots.  Both cutovers are not yet re-measured on the GPU.
 WPATH_MAX_KP = int(os.environ.get("NANORQ_WPATH_MAX_KP", 16384))
 WPATH_GF256_MAX_KP = int(os.environ.get("NANORQ_WPATH_GF256_MAX_KP", 4096))
 

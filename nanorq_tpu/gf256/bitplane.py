@@ -1,4 +1,4 @@
-"""Bit-plane / companion-matrix helpers for GF arithmetic on the MXU.
+"""Bit-plane / companion-matrix helpers for GF arithmetic as integer matmuls.
 
 A GF(2) combination of byte rows (out[r] = XOR of selected rows) cannot be a
 plain integer matmul (carries mix bit lanes), but it *is* one per bit plane:
@@ -39,19 +39,23 @@ def pack_bits(planes: np.ndarray) -> np.ndarray:
     return (p << np.arange(8, dtype=np.uint16)[None, :, None]).sum(1).astype(np.uint8)
 
 
+def _count_matmul(A: np.ndarray, B: np.ndarray) -> np.ndarray:
+    """Integer product of 0/1 matrices via float32 BLAS: every count is at
+    most the contraction length, exact in float32 below 2^24."""
+    assert A.shape[1] < (1 << 24)
+    return (A.astype(np.float32) @ B.astype(np.float32)).astype(np.int64)
+
+
 def gf2_matmul_bytes(bits: np.ndarray, X: np.ndarray) -> np.ndarray:
     """out[r] = XOR_{c: bits[r,c]=1} X[c] for byte rows X (NumPy mirror)."""
     out = np.zeros((bits.shape[0], X.shape[1]), np.uint8)
     for b in range(8):
-        pb = ((X >> b) & 1).astype(np.int32)
-        ob = (bits.astype(np.int32) @ pb) & 1
+        ob = _count_matmul(bits, (X >> b) & 1) & 1
         out |= (ob << b).astype(np.uint8)
     return out
 
 
 def gf256_matmul_bytes(M: np.ndarray, X: np.ndarray) -> np.ndarray:
     """GF(256) matmul M [m,k] (x) X [k,t] via companion bits (NumPy mirror)."""
-    Mb = companion_bits(M).astype(np.int32)
-    Xb = unpack_bits(X).astype(np.int32)  # [8k, t]
-    Ob = (Mb @ Xb) & 1  # [8m, t]
+    Ob = _count_matmul(companion_bits(M), unpack_bits(X)) & 1  # [8m, t]
     return pack_bits(Ob.astype(np.uint8))

@@ -1,7 +1,7 @@
 """Host-side (NumPy) GF(256) linear algebra.
 
 This is the oblas-equivalent used by the host schedule solver and by tests as
-an independent reference for the TPU kernels.  Parity: oblas oaxpy/oscal call
+an independent reference for the device kernels.  Parity: oblas oaxpy/oscal call
 sites at reference lib/precode.c:7-20 and lib/wrkmat.c:79-112.
 """
 

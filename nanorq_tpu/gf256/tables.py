@@ -13,7 +13,7 @@ Exports:
 - OCT_LOG[0..255]: discrete log (OCT_LOG[0] is a 0 sentinel, never valid)
 - OCT_INV[0..255]: multiplicative inverse (OCT_INV[0] sentinel 0)
 - GF_MUL[256,256]: full product table, the workhorse for host-side NumPy
-- MUL_LO/MUL_HI[256,16]: nibble decomposition tables for the TPU kernels:
+- MUL_LO/MUL_HI[256,16]: nibble decomposition tables (16-entry lookups):
   a (x) b = MUL_LO[b, a & 15] ^ MUL_HI[b, a >> 4]
 """
 
@@ -50,7 +50,7 @@ GF_MUL = OCT_EXP[(_lg[_a][:, None] + _lg[_a][None, :])].copy()
 GF_MUL[0, :] = 0
 GF_MUL[:, 0] = 0
 
-# Nibble LUTs for the VPU path: for scalar beta, multiply a whole byte row by
+# Nibble LUTs: for scalar beta, multiply a whole byte row by
 # looking up low/high nibbles in two 16-entry tables.
 MUL_LO = GF_MUL[:16, :].T.copy()  # MUL_LO[beta, lo] = lo (x) beta
 _hi_vals = (np.arange(16, dtype=np.int32) << 4).astype(np.uint8)

@@ -4,7 +4,7 @@
 // elimination with inactivation over matrix *indices* — peel, triangle
 // substitution applied to the dense inactive block, GF(2)/GF(256) dense
 // solve, Schur pivot-block extraction and inversion.  Pure index/byte work;
-// no payload bytes are touched (those run on the TPU).
+// no payload bytes are touched (those run on the device).
 //
 // Reference analog: lib/precode.c:99-377 (precode_matrix_invert), re-designed
 // to emit the structured-replay artifacts instead of an op stream.
@@ -825,7 +825,7 @@ void nrq_splice_rows(int32_t n, const int64_t* base_ptr, const int32_t* base_col
 // (hdpc_used == 0) every value stays in {0, 1}.
 //
 // This powers the dense-W device path: the recovered/encoded symbols become
-// ONE GF(2)/GF(256) matmul W @ D on the MXU instead of the 2*ceil(L/CB)+4
+// ONE GF(2)/GF(256) matmul W @ D on the device instead of the 2*ceil(L/CB)+4
 // stage structured replay (see ops/wpath.py).  No reference analog — the
 // reference replays its op schedule per symbol matrix (lib/precode.c:23-32).
 void nrq_wsolve(int32_t nrhs, int32_t i, int32_t u, int32_t H, int32_t hdpc_used,
@@ -1008,7 +1008,7 @@ void nrq_bit_transpose(int32_t n, int32_t nrhs, const uint64_t* src, uint64_t* d
 // may arrive in any order; they are CSR-bucketed by receiving position
 // first.  This folds the replay's stage-4 sparse gather and stage-5 second
 // trisolve into one host-precomputed dense bit matrix (the device then runs
-// x_a = z ^ Wut x_u as a single MXU matmul).
+// x_a = z ^ Wut x_u as a single matmul).
 void nrq_wut_solve(int32_t i, int32_t WW,
                    int64_t n_tri, const int32_t* tri_ek, const int32_t* tri_ep,
                    int64_t n_ut, const int32_t* ut_ek, const int32_t* ut_uc,

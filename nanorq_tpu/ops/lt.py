@@ -4,7 +4,7 @@ Encoding symbol ISI x is the XOR of its tuple-expanded neighbor rows of the
 intermediate matrix C.  The host expands neighbors for a whole batch of ISIs
 (rfc.tuples.lt_indices) into the same scatter-free GatherPlan shape the
 replayer uses: a row-aligned full-coverage pass for the common low degrees
-plus one-hot-placed overflow gathers for the heavy tail — all wide VPU/DMA
+plus one-hot-placed overflow gathers for the heavy tail — all wide gather
 work with no sequential chain.
 """
 
@@ -133,24 +133,22 @@ def _sorted_plan(idx: np.ndarray, valid: np.ndarray, n: int, n_pad: int, L: int)
     return LTPlan(n=n, n_pad=n_pad, L=L, classes=tuple(classes), sel=jnp.asarray(sel.astype(np.int32)))
 
 
-@partial(jax.jit, static_argnames=("n_pad", "pallas"))
-def _lt_apply(plan, C_ext: jnp.ndarray, n_pad: int, pallas: bool) -> jnp.ndarray:
-    from nanorq_tpu.ops.replay import _LT_GP, _apply_plan
+@partial(jax.jit, static_argnames=("n_pad",))
+def _lt_apply(plan, C_ext: jnp.ndarray, n_pad: int) -> jnp.ndarray:
+    from nanorq_tpu.ops.replay import _apply_plan
 
     t = C_ext.shape[1]
-    return _apply_plan(pallas, C_ext, plan, jnp.zeros((n_pad, t), jnp.uint8), gp=_LT_GP)
+    return _apply_plan(C_ext, plan, jnp.zeros((n_pad, t), jnp.uint8))
 
 
-@partial(jax.jit, static_argnames=("n_pad", "pallas"))
-def _lt_apply_sorted(classes, sel, C_ext: jnp.ndarray, n_pad: int, pallas: bool) -> jnp.ndarray:
-    from nanorq_tpu.ops.replay import _LT_GP, _gather
+@partial(jax.jit, static_argnames=("n_pad",))
+def _lt_apply_sorted(classes, sel, C_ext: jnp.ndarray, n_pad: int) -> jnp.ndarray:
+    from nanorq_tpu.ops.gfmat import xor_reduce_gather
 
     t = C_ext.shape[1]
-    reds = [_gather(pallas, C_ext, ix, gp=_LT_GP) for ix in classes]
+    reds = [xor_reduce_gather(C_ext, ix) for ix in classes]
     reds.append(jnp.zeros((1, t), jnp.uint8))
     red = jnp.concatenate(reds, axis=0)
-    if pallas and red.shape[1] % 1024 == 0:
-        return _gather(pallas, red, sel[:, None], gp=_LT_GP)
     return jnp.take(red, sel, axis=0)
 
 
@@ -161,20 +159,16 @@ def plan_tree(plan: LTPlan) -> tuple:
     return plan.plan, False
 
 
-def lt_apply_local(tree, is_sorted: bool, C_ext: jnp.ndarray, n_pad: int, pallas: bool) -> jnp.ndarray:
+def lt_apply_local(tree, is_sorted: bool, C_ext: jnp.ndarray, n_pad: int) -> jnp.ndarray:
     """Apply a plan's pytree (from plan_tree) to a local C_ext shard."""
     if is_sorted:
         classes, sel = tree
-        return _lt_apply_sorted(classes, sel, C_ext, n_pad, pallas)
-    return _lt_apply(tree, C_ext, n_pad, pallas)
+        return _lt_apply_sorted(classes, sel, C_ext, n_pad)
+    return _lt_apply(tree, C_ext, n_pad)
 
 
-def lt_combine(C: jnp.ndarray, plan: LTPlan, backend: str | None = None) -> jnp.ndarray:
+def lt_combine(C: jnp.ndarray, plan: LTPlan) -> jnp.ndarray:
     """C [L, t] -> symbols [n_pad, t] for the plan's ISIs (row order = isis)."""
-    from nanorq_tpu.ops.replay import default_backend
-
-    pallas = (backend or default_backend()) == "pallas"
     C_ext = jnp.concatenate([C, jnp.zeros((1, C.shape[1]), jnp.uint8)], axis=0)
-    if plan.classes is not None:
-        return _lt_apply_sorted(plan.classes, plan.sel, C_ext, plan.n_pad, pallas)
-    return _lt_apply(plan.plan, C_ext, plan.n_pad, pallas)
+    tree, is_sorted = plan_tree(plan)
+    return lt_apply_local(tree, is_sorted, C_ext, plan.n_pad)

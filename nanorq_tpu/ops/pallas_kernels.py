@@ -1,336 +1,93 @@
-"""Fused Pallas TPU kernels for the GF compute path.
+"""Fused GF(2) bit-plane matmul for NVIDIA GPUs (Pallas, Triton route).
 
-The XLA bit-plane formulation (ops/gfmat.py) materializes 8x int8 plane
-arrays and 4x int32 accumulators in HBM — measured ~10-20x slower than the
-traffic lower bound.  These kernels keep unpack -> MXU matmul -> mod-2 ->
-repack entirely in VMEM, and do row gathers with explicit multi-DMA instead
-of XLA's generic gather:
+The plain XLA formulation (ops/gfmat.py) writes three intermediates to device
+memory: 8 int8 bit planes per input byte, an int32 accumulator 8x as wide as
+the payload, and a masked copy before repacking.  This kernel keeps
+unpack -> int8 tensor-core dot -> mod 2 -> repack in registers: it reads the
+coefficient bits and the payload bytes once and writes the result bytes.
 
-- gf2_matmul_pallas:   out = pack((bits @ planes(X)) & 1), one int8 MXU
-  matmul per (t, k) tile; bytes in, bytes out.
-- gf256_matmul_pallas: same with the companion-bit matrix [8m, 8k] and
-  bit-row unpacked X.
-- gather_xor_pallas:   out[i] = XOR_k src[idx[i,k]] with R*w async row-tile
-  DMAs per grid step and a lane-wide XOR reduce.
+Each program owns an (MB x TW) tile of output bytes and loops over the
+contraction axis in KB-row steps.  Per step the uint8 payload tile is split
+into 0/1 int8 planes in registers and one [MB, KB] x [KB, 8TW] int8 dot
+accumulates into int32 (plane-major columns: acc_b += A . plane_b).
 
-Each has identical semantics to its gfmat.py counterpart; callers pick the
-backend via ops.dispatch.
+All arithmetic is on 0/1 values with integer accumulation, so the result is
+exact whatever the tile order.  `kernel_applies` is the one place that decides
+whether a product takes this kernel or the plain path.  GF(256) products
+always take the plain path: a GF(256) mode of this kernel lost to XLA's
+int8 GEMM at the Vinv and HDPC shapes and won at no shape the codec sends.
 """
 
 from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+# Block sizes (MB output rows, TW byte columns = 8*TW plane columns, KB
+# contraction rows, num_warps, num_stages), swept on an H100 with
+# tools/gf_matmul_ab.py --sweep.
+GF2_CFG = (128, 32, 64, 8, 3)
 
 
-def _bit_planes(x: jnp.ndarray) -> list[jnp.ndarray]:
-    """Eight 0/1 int8 planes of a uint8 array, via mask+compare only
-    (Mosaic has no sub-32-bit shifts; AND + '!=0' lower natively on int8)."""
-    return [(x & jnp.uint8(1 << b) != 0).astype(jnp.int8) for b in range(8)]
+def _shrink(blk: int, n: int) -> int | None:
+    """Largest power of two <= blk dividing n, at least 16 (dot operand floor)."""
+    while blk >= 16 and n % blk:
+        blk //= 2
+    return blk if blk >= 16 else None
 
 
-def _unpack_rows_planar(x: jnp.ndarray) -> jnp.ndarray:
-    """[k, tw] uint8 -> [8k, tw] int8 bit rows in PLANE-MAJOR order
-    (row b*k + c = bit b of x[c]); pairs with companion_bits_planar."""
-    return jnp.concatenate(_bit_planes(x), axis=0)
+def kernel_applies(m: int, k: int, t: int, platform: str | None = None) -> bool:
+    """True iff the GF(2) [m, k] x [k, t] product runs the Triton kernel: the
+    platform is a GPU and k and t tile exactly (the output-row axis is padded
+    by the wrapper)."""
+    platform = platform or jax.default_backend()
+    return platform == "gpu" and not k % 32 and not t % 16
 
 
-def _unpack_cols(x: jnp.ndarray) -> jnp.ndarray:
-    """[k, tw] uint8 -> [k, 8*tw] int8, plane b at columns [b*tw, (b+1)*tw)."""
-    return jnp.concatenate(_bit_planes(x), axis=1)
+def _kernel(a_ref, x_ref, o_ref, *, k: int, MB: int, KB: int, TW: int):
+    r0 = pl.program_id(0) * MB
+    j0 = pl.program_id(1) * TW
+    sh8 = jax.lax.broadcasted_iota(jnp.int32, (8,), 0).astype(jnp.uint8)
+
+    def step(kk, acc):
+        c0 = pl.multiple_of(kk * KB, KB)
+        x = x_ref[pl.ds(c0, KB), pl.ds(j0, TW)]
+        planes = ((x[:, None, :] >> sh8[None, :, None]) & 1).astype(jnp.int8).reshape(KB, 8 * TW)
+        a = a_ref[pl.ds(r0, MB), pl.ds(c0, KB)].astype(jnp.int8)
+        return acc + pl.dot(a, planes)
+
+    acc = jax.lax.fori_loop(0, k // KB, step, jnp.zeros((MB, 8 * TW), jnp.int32))
+    bits = (acc.reshape(MB, 8, TW) & 1) << sh8.astype(jnp.int32)[None, :, None]
+    o_ref[...] = jnp.sum(bits, axis=1).astype(jnp.uint8)
 
 
-def _pack_cols(acc: jnp.ndarray, m: int, tw: int) -> jnp.ndarray:
-    """[m, 8*tw] int32 parities (plane-major columns) -> [m, tw] uint8."""
-    p = acc.reshape(m, 8, tw)
-    r = p[:, 0, :] & 1
-    for b in range(1, 8):
-        r = r | ((p[:, b, :] & 1) << b)
-    return r.astype(jnp.uint8)
+def _gf2_matmul(A: jnp.ndarray, X: jnp.ndarray, cfg: tuple, interpret: bool) -> jnp.ndarray:
+    MB, TW, KB, warps, stages = cfg
+    (m, _), (k, t) = A.shape, X.shape
+    KB, TW = _shrink(KB, k), _shrink(TW, t)
+    assert KB is not None and TW is not None, f"untileable GF matmul k={k} t={t}"
+    MB = min(MB, max(16, 1 << (m - 1).bit_length()))
+    mp = -(-m // MB) * MB
+    if mp != m:  # pad the (small) coefficient operand, never the payload
+        A = jnp.pad(A, ((0, mp - m), (0, 0)))
+    out = pl.pallas_call(
+        partial(_kernel, k=k, MB=MB, KB=KB, TW=TW),
+        grid=(mp // MB, t // TW),
+        out_specs=pl.BlockSpec((MB, TW), lambda i, j: (i, j)),
+        out_shape=jax.ShapeDtypeStruct((mp, t), jnp.uint8),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=warps, num_stages=stages),
+        interpret=interpret,
+        name="gf2_matmul",
+    )(A, X)
+    return out if mp == m else out[:m]
 
 
-def _pack_rows_planar(acc: jnp.ndarray, m: int, tw: int) -> jnp.ndarray:
-    """[8m, tw] int32 parities in plane-major row order -> [m, tw] uint8."""
-    p = acc.reshape(8, m, tw)
-    r = p[0] & 1
-    for b in range(1, 8):
-        r = r | ((p[b] & 1) << b)
-    return r.astype(jnp.uint8)
-
-
-def companion_bits_planar(M: np.ndarray) -> np.ndarray:
-    """Companion bit matrix with plane-major row/column order.
-
-    Rows o*m + r (bit o of output byte r), columns b*k + c (bit b of input
-    byte c) — the layout _unpack_rows_planar/_pack_rows_planar produce
-    without any 8-strided interleave (Mosaic only reshapes 32-bit vectors)."""
-    from nanorq_tpu.gf256.tables import GF_MUL, OCT_EXP
-
-    m, k = M.shape
-    prod = GF_MUL[M[:, :, None], OCT_EXP[:8][None, None, :]]  # [m, k, b]
-    bits = (prod[:, :, :, None] >> np.arange(8)[None, None, None, :]) & 1  # [m,k,b,o]
-    return bits.transpose(3, 0, 2, 1).reshape(8 * m, 8 * k).astype(np.uint8)
-
-
-def gf256_mb(m: int, kb: int) -> int:
-    """Output-row tile for the blocked GF(256) matmul: bounds the in-VMEM
-    companion block (double-buffered) to ~2MB.  Must match between the host
-    layout builder and the kernel."""
-    mb = m
-    while mb > 32 and (8 * mb * 8 * kb > (2 << 20) or m % mb):
-        mb //= 2
-    return mb
-
-
-def companion_bits_blocked(M: np.ndarray, kb: int) -> np.ndarray:
-    """Plane-major companion bits per (mb x kb) tile: tile (im, kk) occupies
-    rows [im*8mb, (im+1)*8mb) and cols [kk*8kb, (kk+1)*8kb), each internally
-    plane-major — the layout the tiled gf256_matmul_pallas kernel consumes."""
-    m, k = M.shape
-    assert k % kb == 0
-    mb = gf256_mb(m, kb)
-    rows = []
-    for i0 in range(0, m, mb):
-        blocks = [companion_bits_planar(M[i0 : i0 + mb, j0 : j0 + kb]) for j0 in range(0, k, kb)]
-        rows.append(np.concatenate(blocks, axis=1))
-    return np.concatenate(rows, axis=0)
-
-
-# ---------------------------------------------------------------------------
-# GF(2) matmul: out[r] = XOR_{c: bits[r,c]=1} X[c]
-# ---------------------------------------------------------------------------
-
-def _gf2_kernel(bits_ref, x_ref, o_ref, acc_ref):
-    nk = pl.num_programs(2)
-    kk = pl.program_id(2)
-
-    @pl.when(kk == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    planes = _unpack_cols(x_ref[:])  # [KB, 8*TW]
-    acc_ref[:] += jax.lax.dot_general(
-        bits_ref[:].astype(jnp.int8), planes,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )
-
-    @pl.when(kk == nk - 1)
-    def _():
-        o_ref[:] = _pack_cols(acc_ref[:], o_ref.shape[0], o_ref.shape[1])
-
-
-def _gf2_kernel_1k(bits_ref, x_ref, o_ref):
-    """Single-K-block variant: no accumulator scratch, straight through."""
-    planes = _unpack_cols(x_ref[:])
-    acc = jax.lax.dot_general(
-        bits_ref[:].astype(jnp.int8), planes,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )
-    o_ref[:] = _pack_cols(acc, o_ref.shape[0], o_ref.shape[1])
-
-
-def _pick_tw(t: int, cap: int) -> int | None:
-    """Largest multiple of 128 that divides t, capped; None if impossible."""
-    tw = min(t, max(128, cap // 128 * 128))
-    while tw >= 128:
-        if t % tw == 0 and tw % 128 == 0:
-            return tw
-        tw -= 128
-    return None
-
-
-@partial(jax.jit, static_argnames=("tw", "kb", "mb"))
-def gf2_matmul_pallas(bits: jnp.ndarray, X: jnp.ndarray, tw: int | None = None, kb: int = 1024, mb: int | None = None) -> jnp.ndarray:
-    m, k = bits.shape
-    k2, t = X.shape
-    assert k == k2
-    if mb is None:
-        mb = m
-    assert m % mb == 0
-    if tw is None:
-        tw = _pick_tw(t, (4 << 20) // (32 * mb))  # int32 acc [mb, 8tw] <= 4MB (stack OOMs at 8MB)
-        assert tw is not None, f"payload width {t} not tileable"
-    tw = min(tw, t)
-    kb = min(kb, k)
-    assert t % tw == 0 and k % kb == 0
-    if kb == k:
-        return pl.pallas_call(
-            _gf2_kernel_1k,
-            grid=(m // mb, t // tw),
-            in_specs=[
-                pl.BlockSpec((mb, k), lambda im, j: (im, 0)),
-                pl.BlockSpec((k, tw), lambda im, j: (0, j)),
-            ],
-            out_specs=pl.BlockSpec((mb, tw), lambda im, j: (im, j)),
-            out_shape=jax.ShapeDtypeStruct((m, t), jnp.uint8),
-        )(bits, X)
-    grid = (m // mb, t // tw, k // kb)
-    return pl.pallas_call(
-        _gf2_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((mb, kb), lambda im, j, kk: (im, kk)),
-            pl.BlockSpec((kb, tw), lambda im, j, kk: (kk, j)),
-        ],
-        out_specs=pl.BlockSpec((mb, tw), lambda im, j, kk: (im, j)),
-        out_shape=jax.ShapeDtypeStruct((m, t), jnp.uint8),
-        scratch_shapes=[pltpu.VMEM((mb, 8 * tw), jnp.int32)],
-    )(bits, X)
-
-
-# ---------------------------------------------------------------------------
-# GF(256) matmul via companion bits: Mbits [8m, 8k] (x) X [k, t] -> [m, t]
-# ---------------------------------------------------------------------------
-
-def _gf256_kernel(mb_ref, x_ref, o_ref, acc_ref):
-    nk = pl.num_programs(2)
-    kk = pl.program_id(2)
-
-    @pl.when(kk == 0)
-    def _():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    xb = _unpack_rows_planar(x_ref[:])  # [8*KB, TW] plane-major
-    acc_ref[:] += jax.lax.dot_general(
-        mb_ref[:].astype(jnp.int8), xb,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )
-
-    @pl.when(kk == nk - 1)
-    def _():
-        o_ref[:] = _pack_rows_planar(acc_ref[:], o_ref.shape[0], o_ref.shape[1])
-
-
-def _gf256_kernel_1k(mb_ref, x_ref, o_ref):
-    xb = _unpack_rows_planar(x_ref[:])
-    acc = jax.lax.dot_general(
-        mb_ref[:].astype(jnp.int8), xb,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32,
-    )
-    o_ref[:] = _pack_rows_planar(acc, o_ref.shape[0], o_ref.shape[1])
-
-
-@partial(jax.jit, static_argnames=("kb", "tw"))
-def gf256_matmul_pallas(Mbits: jnp.ndarray, X: jnp.ndarray, kb: int, tw: int | None = None) -> jnp.ndarray:
-    """GF(256) matmul; Mbits from companion_bits_blocked(M, kb), X [k, t]."""
-    m8, k8 = Mbits.shape
-    k, t = X.shape
-    assert k8 == 8 * k and m8 % 8 == 0
-    m = m8 // 8
-    # m-tiling bounds the in-VMEM companion block (double-buffered by the
-    # pipeline) and the int32 accumulator; must match companion_bits_blocked
-    mb = gf256_mb(m, kb)
-    if tw is None:
-        cap = min((4 << 20) // (4 * 8 * mb), (4 << 20) // (8 * kb))
-        tw = _pick_tw(t, cap)
-        assert tw is not None, f"payload width {t} not tileable"
-    tw = min(tw, t)
-    assert t % tw == 0 and k % kb == 0 and m % mb == 0
-    if kb == k and mb == m:
-        return pl.pallas_call(
-            _gf256_kernel_1k,
-            grid=(t // tw,),
-            in_specs=[
-                pl.BlockSpec((m8, 8 * k), lambda j: (0, 0)),
-                pl.BlockSpec((k, tw), lambda j: (0, j)),
-            ],
-            out_specs=pl.BlockSpec((m, tw), lambda j: (0, j)),
-            out_shape=jax.ShapeDtypeStruct((m, t), jnp.uint8),
-        )(Mbits, X)
-    grid = (m // mb, t // tw, k // kb)
-    return pl.pallas_call(
-        _gf256_kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((8 * mb, 8 * kb), lambda im, j, kk: (im, kk)),
-            pl.BlockSpec((kb, tw), lambda im, j, kk: (kk, j)),
-        ],
-        out_specs=pl.BlockSpec((mb, tw), lambda im, j, kk: (im, j)),
-        out_shape=jax.ShapeDtypeStruct((m, t), jnp.uint8),
-        scratch_shapes=[pltpu.VMEM((8 * mb, tw), jnp.int32)],
-    )(Mbits, X)
-
-
-# ---------------------------------------------------------------------------
-# Row gather-XOR: out[i] = XOR_k src[idx[i, k]]  (idx [n, w], sentinel rows
-# must point at an all-zero row of src)
-# ---------------------------------------------------------------------------
-
-def _gather_kernel_factory(R, w):
-    def kernel(idx_ref, src_ref, o_ref, scratch, sem):
-        # idx arrives as an SMEM-blocked [R, w] tile (scalar-prefetch SMEM is
-        # capped at ~1 MB, so large index arrays must stream per block).  One
-        # shared DMA semaphore: completions accumulate; all copies share one
-        # tile shape, so waiting R*w times on a single descriptor (no per-wait
-        # address recomputation) consumes exactly all completions.
-        j = pl.program_id(1)
-        for r in range(R):
-            for k in range(w):
-                row = idx_ref[r, k]
-                pltpu.make_async_copy(src_ref.at[row, j], scratch.at[r, k], sem).start()
-        waiter = pltpu.make_async_copy(src_ref.at[0, j], scratch.at[0, 0], sem)
-        for _ in range(R * w):
-            waiter.wait()
-        acc = scratch[:, 0]
-        for k in range(1, w):
-            acc = acc ^ scratch[:, k]
-        o_ref[:, 0] = acc
-
-    return kernel
-
-
-@partial(jax.jit, static_argnames=("R", "tw"))
-def gather_xor_pallas(src: jnp.ndarray, idx: jnp.ndarray, R: int = 8, tw: int | None = None) -> jnp.ndarray:
-    """out[i] = XOR_k src[idx[i,k]].  src is viewed 4D [S, t/tw, tw/128, 128]
-    so each row-tile DMA slices only leading (untiled) dims.
-
-    tw defaults to the full payload width (VMEM-capped): fewer, larger DMAs
-    measured strictly faster on v5e (846 GB/s vs 311 at 8 KiB tiles on a
-    VMEM-resident source).  Throughput is bimodal in the SOURCE size: XLA
-    promotes ANY-space sources up to ~105 MB into VMEM (hundreds of GB/s);
-    larger sources pay HBM random-row cost (~150 ns/DMA, 22-60 GB/s) — callers
-    control this via the batch width (see bench B tuning).
-    """
-    n, w = idx.shape
-    S, t = src.shape
-    cap = 6 << 20  # scratch VMEM budget (scoped limit is 16 MB)
-    if tw is None:
-        tw = t
-    while R > 8 and R * w * tw > cap:
-        R //= 2
-    while tw > 1024 and R * w * tw > cap:
-        tw = -(-tw // 2048) * 1024
-    # sublane dim tw/128 must stay a multiple of 8 for tile-aligned DMA slices
-    tw = min(tw // 1024 * 1024, t)
-    while tw >= 1024 and t % tw:
-        tw -= 1024
-    assert tw >= 1024 and t % tw == 0, f"payload width {t} needs a 1024-multiple tile"
-    n_orig = n
-    if n % R:  # pad rows to the grid quantum (gathers of row 0, discarded)
-        pad = R - n % R
-        idx = jnp.concatenate([idx, jnp.zeros((pad, w), idx.dtype)], axis=0)
-        n += pad
-    src4 = src.reshape(S, t // tw, tw // 128, 128)
-    grid = (n // R, t // tw)
-    out4 = pl.pallas_call(
-        _gather_kernel_factory(R, w),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((R, w), lambda i, j: (i, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=pl.BlockSpec((R, 1, tw // 128, 128), lambda i, j: (i, j, 0, 0)),
-        out_shape=jax.ShapeDtypeStruct((n, t // tw, tw // 128, 128), jnp.uint8),
-        scratch_shapes=[
-            pltpu.VMEM((R, w, tw // 128, 128), jnp.uint8),
-            pltpu.SemaphoreType.DMA,
-        ],
-    )(idx, src4)
-    return out4.reshape(n, t)[:n_orig]
+@partial(jax.jit, static_argnames=("interpret",))
+def gf2_matmul_triton(A: jnp.ndarray, X: jnp.ndarray, interpret: bool = False) -> jnp.ndarray:
+    """GF(2) product of A [m, k] (0/1) with byte rows X [k, t] -> [m, t]
+    uint8.  k and t must tile (kernel_applies); m is padded to the row block
+    here."""
+    return _gf2_matmul(A, X, GF2_CFG, interpret)

@@ -2,16 +2,14 @@
 
 RaptorQ source blocks are fully independent (the reference exposes this as
 the per-SBN encoder array, lib/nanorq.c:57, but never exploits it — it is
-single threaded).  On TPU the batch axis is the payload width (blocks laid
-side by side, t = B*T), so multi-chip scaling is one shard_map over a 1-D
-'blocks' mesh: every device runs the identical structured replay / LT
-program on its own slice of blocks; schedule arrays are replicated (they are
-small index/bit tensors shared by all blocks of a K').  No collectives are
-needed on the hot path — this is pure SPMD data parallelism over ICI-free
-work, the optimal layout for this workload.
+single threaded).  On the device the batch axis is the payload width
+(blocks laid side by side, t = B*T), so multi-device scaling is one
+shard_map over a 1-D 'blocks' mesh: every device runs the identical
+structured replay / LT program on its own slice of blocks; schedule arrays
+are replicated (they are small index/bit tensors shared by all blocks of a
+K').  No collectives are needed on the hot path — this is pure SPMD data
+parallelism, the optimal layout for this workload.
 """
-
-from functools import partial
 
 import jax
 import jax.numpy as jnp
@@ -49,29 +47,25 @@ def replay_sharded(arr: dict, D: jnp.ndarray, mesh: Mesh):
     """Sharded structured replay: D [M_pad, n_dev*B*T] split on width."""
     from nanorq_tpu.ops.replay import _replay_jit
 
-    a = dict(arr)
-    pallas = a.pop("pallas")
     f = shard_map(
-        partial(_replay_jit, pallas=pallas),
+        _replay_jit,
         mesh=mesh,
         in_specs=(P(), P(None, "blocks")),
         out_specs=P(None, "blocks"),
         check_vma=False,
     )
-    return jax.jit(f)(a, D)
+    return jax.jit(f)(arr, D)
 
 
-def lt_sharded(C: jnp.ndarray, plan, mesh: Mesh, backend: str | None = None):
+def lt_sharded(C: jnp.ndarray, plan, mesh: Mesh):
     """Sharded LT combine: C [L, n_dev*B*T] split on width."""
     from nanorq_tpu.ops.lt import lt_apply_local, plan_tree
-    from nanorq_tpu.ops.replay import default_backend
 
-    pallas = (backend or default_backend()) == "pallas"
     tree, is_sorted = plan_tree(plan)
 
     def local(parr, C_local):
         C_ext = jnp.concatenate([C_local, jnp.zeros((1, C_local.shape[1]), jnp.uint8)], axis=0)
-        return lt_apply_local(parr, is_sorted, C_ext, plan.n_pad, pallas)
+        return lt_apply_local(parr, is_sorted, C_ext, plan.n_pad)
 
     f = shard_map(
         local,
@@ -86,16 +80,14 @@ def lt_sharded(C: jnp.ndarray, plan, mesh: Mesh, backend: str | None = None):
 def codec_step_sharded(arr: dict, plan, D: jnp.ndarray, mesh: Mesh):
     """Full device step (replay + LT) under one jitted shard_map."""
     from nanorq_tpu.ops.lt import lt_apply_local, plan_tree
-    from nanorq_tpu.ops.replay import _replay_jit, default_backend
+    from nanorq_tpu.ops.replay import _replay_jit
 
-    a = dict(arr)
-    pallas = a.pop("pallas")
     tree, is_sorted = plan_tree(plan)
 
     def local(a_, parr, D_local):
-        C = _replay_jit(a_, D_local, pallas)
+        C = _replay_jit(a_, D_local)
         C_ext = jnp.concatenate([C, jnp.zeros((1, C.shape[1]), jnp.uint8)], axis=0)
-        return C, lt_apply_local(parr, is_sorted, C_ext, plan.n_pad, pallas)
+        return C, lt_apply_local(parr, is_sorted, C_ext, plan.n_pad)
 
     f = shard_map(
         local,
@@ -104,7 +96,7 @@ def codec_step_sharded(arr: dict, plan, D: jnp.ndarray, mesh: Mesh):
         out_specs=(P(None, "blocks"), P(None, "blocks")),
         check_vma=False,
     )
-    return jax.jit(f)(a, tree, D)
+    return jax.jit(f)(arr, tree, D)
 
 
 def w_step_sharded(staged: dict, D: jnp.ndarray, mesh: Mesh):
@@ -114,7 +106,7 @@ def w_step_sharded(staged: dict, D: jnp.ndarray, mesh: Mesh):
     from nanorq_tpu.ops.wpath import _w_gf2_jit
 
     f = shard_map(
-        partial(_w_gf2_jit, pallas=staged["pallas"]),
+        _w_gf2_jit,
         mesh=mesh,
         in_specs=(P(), P(), P(None, "blocks")),
         out_specs=P(None, "blocks"),

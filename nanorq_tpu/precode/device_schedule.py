@@ -1,4 +1,4 @@
-"""Compile a SolveState into the structured TPU replay program.
+"""Compile a SolveState into the structured device replay program.
 
 Instead of streaming ~3L..40L elementary row ops (whose dependency depth is
 O(L) — hopeless on a wide machine), the device executes six batched stages
@@ -7,13 +7,13 @@ derived from the block factorization of A^{-1}:
   1. t1   = T^-1 y            block forward substitution: scan over CB-row
                               chunks; each step = sparse XOR-gather of
                               earlier-chunk deps + dense GF(2) matmul with
-                              the precomputed chunk-inverse (MXU)
+                              the precomputed chunk-inverse
   2. zsel = y_sel ^ B_sel t1  sparse bucketed XOR-gather for binary rows,
                               dense GF(256) matmul (companion bit-planes,
-                              MXU) for the <=H HDPC rows
+                              int8 matmul) for the <=H HDPC rows
   3. x_u  = Vinv zsel         dense GF(256) matmul with the precomputed
                               inverse of the u x u Schur pivot block
-  4. x_a  = t1 ^ Wut x_u      ONE dense GF(2) MXU matmul: Wut = T^-1 U_t is
+  4. x_a  = t1 ^ Wut x_u      ONE dense GF(2) matmul: Wut = T^-1 U_t is
                               precomputed on the host (binary even when HDPC
                               pivots were taken — the triangle is GF(2)), so
                               x_a = T^-1 (y ^ U_t x_u) = t1 ^ Wut x_u needs
@@ -48,20 +48,18 @@ _WIDTHS = (4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
 # Triangle staircase-gather planning knobs (see compile_device): candidate
 # prefix boundaries, quantized gather widths, and the DP's modeled cost of
 # one more gather launch / one more segment (slots-equivalent).  Module
-# scope so tools/bsweep-style probes can retune against hardware.  All env
+# scope so probes can retune against hardware.  All env
 # knobs are snapshotted at import time (setting them later has no effect).
 CAND_GRID = tuple(sorted(set(
     list(range(0, 16)) + list(range(16, 33, 2))
     + [40, 48, 56, 64, 80, 96, 128, 160, 192, 224, 256, 320, 384, 448, 512, 640, 768, 896]
 )))
-# power-of-two gather widths only: denser grids (3, 5, 6, ...) fill slots
-# better but measured *slower* per slot in the DMA gather kernel; pow2-wide
-# scratch tiles win end to end (A/B at K=50000: 27.96 vs 28.32 ms full).
-# "hybrid64" (the default) keeps pow2 below 64 (where the small-width
-# slowdown was measured) and adds 64-multiples above, where the heavy-row
-# ranges quantize 130-200-degree rows up to 256 — on-chip A/B at K=50000
-# B=1 (tools/replay_stage_prof.py): slots 546928 -> 494960 (-9.5%), fill
-# 50% -> 56%, trisolve 9.37 -> 7.84 ms, full replay 19.15 -> 18.73 ms.
+# gather width grids: "pow2" has the fewest distinct widths (fewest
+# compiled shapes); "dense" fills slots best.  "hybrid64" (the default)
+# keeps pow2 below 64 and adds 64-multiples above, where the heavy-row
+# ranges would otherwise quantize 130-200-degree rows up to 256 (at
+# K=50000: gathered slots 546928 -> 494960, -9.5%).  Which grid is fastest
+# on the GPU, where the gathers are plain XLA, is not yet measured.
 _WQ_GRIDS = {
     "dense": (1, 2, 3, 4, 5, 6, 7, 8, 10, 12, 14, 16, 20, 24, 28, 32, 40, 48, 56, 64,
               80, 96, 128, 160, 192, 256, 320, 384, 512, 768, 1024, 2048, 4096),
@@ -98,10 +96,10 @@ def _pad_rows(n: int) -> int:
 
 
 def default_cb(L: int) -> int:
-    """Measured-on-v5e chunk size: mid-size triangles amortize per-chunk
-    overhead with bigger chunks; at large L the chunk-inverse matmul
-    dominates and smaller chunks win (staircase gathers keep the dep
-    traffic nearly CB-independent)."""
+    """Trisolve chunk size: mid-size triangles amortize per-chunk overhead
+    with bigger chunks; at large L the chunk-inverse matmul dominates and
+    smaller chunks win (staircase gathers keep the dep traffic nearly
+    CB-independent).  Not yet swept on the GPU (tools/cb_probe.py)."""
     return 256 if L <= 2048 else (512 if L <= 16384 else 256)
 
 
@@ -165,7 +163,7 @@ class GatherPlan:
 
     Row-aligned full-coverage passes handle the common small-degree rows
     (result rows line up with the output, so application is elementwise XOR
-    — dynamic row-scatters cost ~30x an aligned XOR on TPU).  The few wide
+    — no dynamic row-scatters on the device).  The few wide
     rows go through quantized-width overflow gathers placed by a width-1
     gather (`sel`), since each output row receives at most one result.
     """
@@ -330,7 +328,7 @@ def compile_device(st: SolveState, CB: int | None = None, canonical: bool = Fals
     if CB is None:
         CB = default_cb(L)
     Lpad = -(-L // CB) * CB
-    u_pad = max(32, _quant(max(u, 1)))  # >= 32: int8 sublane-tile floor
+    u_pad = max(32, _quant(max(u, 1)))  # >= 32: the GPU kernel's int8 dot floor
     M_pad = _pad_rows(M + 1)
     zero_row = M_pad - 1  # executor guarantees D[M_pad-1] == 0
 
@@ -529,7 +527,7 @@ def compile_device(st: SolveState, CB: int | None = None, canonical: bool = Fals
     hd_sel_vec = None
     if st.hdpc_used:
         Ahd = hdpc_full_rows(P)
-        H_pad = 32  # Table 2 H is 10..16; pad to the int8 sublane-tile floor
+        H_pad = 32  # Table 2 H is 10..16; pad to the int8 dot floor
         mhd = np.zeros((H_pad, Lpad), np.uint8)
         if i:
             mhd[: P.H, posfull] = Ahd[:, st.piv_cols]
@@ -874,7 +872,8 @@ def _tri_plan_py(Lpad: int, CB: int, dep_k: np.ndarray, dep_pos: np.ndarray):
 #
 # The DP planner optimizes each pattern's layout individually, but its
 # segment boundaries / range widths are data-dependent, so every loss
-# pattern used to compile a FRESH replay program (tens of seconds on TPU).
+# pattern used to compile a FRESH replay program (seconds to tens of
+# seconds per compile).
 # Instead, per (K', CB, u_pad, M_pad, hdpc) key, the first _FREEZE_AFTER
 # structured decode patterns plan as before while their degree profiles
 # accumulate (elementwise max); the layout is then frozen by running the

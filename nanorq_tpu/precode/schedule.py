@@ -4,7 +4,7 @@ The solver (precode/solver.py) runs Gaussian elimination with inactivation
 over matrix *indices* only and records a linear program of GF(256) row
 operations; the replayer applies that program to the payload matrix D.  This
 is the reference's schedule/payload split (lib/sched.c, lib/precode.c:23-32)
-re-designed for TPU replay:
+re-designed for device replay:
 
 - ops are already *linearized* into final execution order (the reference's
   4-segment fwd/rev/fwd/fwd replay order is flattened at solve time), so the

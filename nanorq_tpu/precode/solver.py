@@ -1,12 +1,12 @@
 """Host-side Gaussian elimination with inactivation over matrix indices.
 
-This is the TPU-first re-design of the reference's precode_matrix_invert
+This is the device-first re-design of the reference's precode_matrix_invert
 (lib/precode.c:99-377).  It runs once per (K', received-ISI set), touches no
 payload bytes, and produces:
 
 - a linearized elementary-op program (Schedule) used as the correctness
   oracle and host fallback, and
-- via precode.device_schedule, the *structured* artifacts for the TPU
+- via precode.device_schedule, the *structured* artifacts for the device
   replayer (block-triangular solve + dense GF matmuls), which is how the
   payload work actually runs on device.
 

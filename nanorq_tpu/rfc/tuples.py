@@ -3,8 +3,8 @@
 Parity: reference lib/tuple.c (deg, gen_tuple) and lib/params.c:47-65
 (params_set_idxs).  Everything is vectorized over the symbol id X (= ISI) so
 a whole block's worth of symbols expands with a few NumPy gathers; the padded
-[n, MAX_NEIGHBORS] index matrix these produce is exactly what the batched TPU
-LT-combine kernel consumes.
+[n, MAX_NEIGHBORS] index matrix these produce is exactly what the batched device
+LT combine consumes.
 """
 
 from typing import NamedTuple

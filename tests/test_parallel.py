@@ -1,6 +1,7 @@
 """Sharded replay/LT over the 8-device virtual CPU mesh."""
 
 import numpy as np
+import pytest
 
 
 def test_sharded_codec_step_matches_single_device():
@@ -69,12 +70,13 @@ def test_sharded_w_step_matches_single_device():
     assert np.array_equal(got, want)
 
 
-def test_dryrun_multichip_self_provisions():
+@pytest.mark.parametrize("n_devices", [2, 4])  # 4: the four-GPU host's mesh
+def test_dryrun_multichip_self_provisions(n_devices):
     """The driver gate: dryrun_multichip must provision its own virtual mesh
     (fresh interpreter, forced-CPU env) regardless of this process's backend."""
     import __graft_entry__
 
-    __graft_entry__.dryrun_multichip(2)
+    __graft_entry__.dryrun_multichip(n_devices)
 
 
 def _pattern_roundtrip(K, Z, T, mesh, seed=0, backend="device"):

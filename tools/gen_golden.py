@@ -11,7 +11,7 @@ math, the solver, or the device kernels that alters a single payload byte
 turns the suite red.
 
 Bit-exactness is backend-independent (all codec arithmetic is exact GF(2)/
-GF(256)); generation forces the CPU backend so regen never needs a TPU.
+GF(256)); generation forces the CPU backend so regen never needs a GPU.
 The configs cover multi-block objects, N>1 sub-blocking, short final
 symbols (F not a multiple of T), odd alignments, heavy loss, and the
 HDPC-pivot regime (small K with overhead < H).

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Long-running end-to-end fuzz (CPU): randomized configs well beyond the
-pytest grid (tests/test_fuzz.py), meant for soak runs while a TPU batch is
-queued or overnight.
+pytest grid (tests/test_fuzz.py), meant for soak runs on a spare CPU
+or overnight.
 
     python tools/longfuzz.py [minutes] [base_seed]
 
